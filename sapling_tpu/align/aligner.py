@@ -5,7 +5,7 @@ read at a time: 7 seeds per strand, one plQuery each, hit expansion via
 LCP runs, then one striped-SW call per candidate window, keeping the best
 strictly-greater score with a perfect-match early exit.
 
-The TPU inversion runs the same computation in three batched phases over a
+The batched inversion runs the same computation in three phases over a
 whole block of reads, then replays the reference's *serial selection
 order* on the host so the chosen alignment (and therefore the SAM bytes)
 is identical:
@@ -91,7 +91,7 @@ class SeedExtendAligner:
         if getattr(index, "inv_hi", None) is not None:
             # split-limb (>=2^32-rank) artifacts store inv as low 32 bits
             # + a separate uint8 high limb; reading idx.inv alone would
-            # silently truncate ranks >= 2^32 (ADVICE r3)
+            # silently truncate ranks >= 2^32
             raise ValueError(
                 "split-limb index (inv_hi present) unsupported by the "
                 "aligner — ranks would truncate; build with n < 2^32")
@@ -120,8 +120,8 @@ class SeedExtendAligner:
 
     def _seed_qcfg(self):
         """QueryConfig for the seed lookups. compact_unresolved measured
-        SLOWER here (0.80 -> 1.29 s of query time per 32k reads, 20 Mbp
-        k=16 index): seed batches are small (~115k lanes) so the
+        SLOWER here where first tried (20 Mbp k=16 index; not yet
+        measured on a GPU): seed batches are small (~115k lanes) so the
         compaction scan/scatter overhead isn't amortized, and the k=16
         index's dense buckets (~38 suffixes each) give a low
         prediction-probe hit rate — the win scales with resolved
@@ -210,9 +210,9 @@ class SeedExtendAligner:
         # --- phase 1: batched seed lookups ---------------------------------
         # Everything from here to the replay is vectorized over flat
         # [entries x num_seeds] and [candidates] axes: the per-seed /
-        # per-candidate Python loops were ~65% of block wall time
-        # (profiled on TPU, 8192-read blocks; the kernels are not the
-        # aligner's bottleneck, the host loops are).
+        # per-candidate Python loops were most of block wall time when
+        # profiled (the kernels are not the aligner's bottleneck, the
+        # host loops are).
         ns = cfg.num_seeds
         # seed offsets (reference: src/align.cpp:271-275): 0, last//(ns-1)*i,
         # last — batched over entries
@@ -240,10 +240,9 @@ class SeedExtendAligner:
         k-mers of one or more encoded blocks; returns each block's [S]
         position array (-1 for invalid seeds).
 
-        Coalescing across blocks amortizes the per-dispatch RPC cost that
-        bounds the seed-query phase at the measured block size
-        (docs/PERFORMANCE.md "Aligner block anatomy") and widens the lane
-        count the compaction cascade works with. The batch is padded to a
+        Coalescing across blocks amortizes the per-dispatch cost of the
+        seed-query phase and widens the lane count the compaction cascade
+        works with. The batch is padded to a
         few-significant-bits bucket so plquery_batch (shape-specialized
         jit) compiles O(log B) variants instead of one per distinct valid
         count; pad lanes repeat row 0 and are discarded. Per-lane results
@@ -356,8 +355,8 @@ class SeedExtendAligner:
         # no best exists, i.e. only for the read's first seed with any
         # surviving window (y0); later over-limit seeds contribute offset 0
         # alone (src/align.cpp:310-321). Scoring ineligible windows is pure
-        # waste — on repeat-heavy genomes they are the bulk of the superset
-        # (measured 79% of block time in SW before this pruning).
+        # waste — on repeat-heavy genomes they are the bulk of the
+        # superset.
         if len(rep):
             yrows = np.unique(rep)
             y0 = np.full(nr, len(eiA), np.int64)

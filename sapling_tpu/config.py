@@ -18,7 +18,9 @@ class IndexConfig:
     most_threshold: float = 0.95  # error bound percentile (:35)
     pos_dtype: str = "auto"     # int32 / uint32 / int64 by genome size
     prefix_lookup: bool = True  # build uint64 per-rank 32-base prefixes
-    prefix_max_n: int = 1_500_000_000  # skip when rev+prefix exceed HBM
+    # skip the per-rank prefixes (8 B/rank each) above this n; a budget
+    # set for a smaller device and not yet re-derived for an 80 GB card
+    prefix_max_n: int = 1_500_000_000
 
     def resolved_buckets(self, n: int) -> int:
         if self.buckets != -1:
@@ -46,8 +48,9 @@ class QueryConfig:
     # Bisect the escalated tail (lanes beyond the most window) in a
     # compacted static-capacity batch so the full-width while_loop only
     # runs the shallow most-window depth (ops.query compact_escalate).
-    # Bit-identical results — same per-lane decision sequence. Default ON:
-    # measured +23% at 4.6 Mbp and +125% at 230 Mbp (docs/PERFORMANCE.md).
+    # Bit-identical results — same per-lane decision sequence. Default ON
+    # (a gain at every scale where first measured; docs/PERFORMANCE.md
+    # at commit 9faeb07).
     compact_escalate: bool = True
     compact_cap: int | None = None  # None = batch/8 (ops.query._compact_cap)
     # Stronger compaction (fast3 path): run EVERYTHING after the

@@ -2,7 +2,7 @@
 
 The reference publishes index memory as a plot of hard-coded totals
 (eval/Memory/plot_memory.py:15-16: Sapling 80-88 GB on GRCh38 with
-size_t-everywhere arrays). The TPU rebuild packs everything; this module
+size_t-everywhere arrays). This rebuild packs everything; this module
 reports the actual bytes per component and the PWL overhead fraction
 (the "X% overhead" naming axis used across all reference plots).
 """

@@ -46,7 +46,7 @@ class PwlTable:
     # the reference charges every query the GLOBAL 95th-pct/max window
     # (src/sapling_api.h:165-183), so the worst buckets set everyone's
     # bisection depth; per-bucket bounds shrink the average window, which
-    # is what the gather-bound TPU engine actually pays for.
+    # is what the gather-bound engine actually pays for.
     bounds: np.ndarray | None = None   # uint32 [2^buckets]
 
 

@@ -26,7 +26,7 @@ from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs, pack_bit
 
 def _pos_dtype(n: int, cfg: str = "auto"):
     """Rank/position STORAGE dtype. uint32 covers 2^31 <= n < 2^32
-    (GRCh38-scale rev fits one chip's HBM at 4 B/rank); query-lane state
+    (a GRCh38-scale rev at 4 B/rank); query-lane state
     promotes to signed int64 on gather (ops.query._state_dtype)."""
     if cfg in ("int32", "int64", "uint32"):
         return np.dtype(cfg).type
@@ -91,8 +91,8 @@ class SaplingIndex:
         packed = packops.pack_codes(codes, pad_words=16)
         rev = np.empty(n, dtype=pdt)
         rev[suffix.inv] = np.arange(n, dtype=pdt)
-        # probe-acceleration prefixes: 8 B/rank; auto-skip when they would
-        # not fit HBM alongside rev (GRCh38-scale)
+        # probe-acceleration prefixes: 8 B/rank; skipped above
+        # cfg.prefix_max_n (see IndexConfig)
         want_prefix = cfg.prefix_lookup and n <= cfg.prefix_max_n
         prefix64 = packops.rank_prefix64(codes, rev) if want_prefix else None
         prefix3 = packops.rank_prefix3(codes, rev) if want_prefix else None
@@ -238,25 +238,23 @@ class SaplingIndex:
                       use_pred2: bool | None = None):
         """Lazily put the hot arrays on the default device.
 
-        XLA TPU gathers need int32-indexable operands, so a rev with more
-        than 2^31-1 entries (GRCh38-scale) ships as its even/odd halves
-        (ops.query.HalvesU32): two u32 gathers + a select reach any
-        rank — one gather fewer than the former tuple-of-2^30-banks
-        layout, and none of the uint64 pair view's 2x HBM arg cost
-        (X64Split temps; PairedU32 is flag-only). At the same scale
-        int64/u64 tables ship pre-split as u32 — the X64-rewrite pass
-        materializes duplicate 32-bit copies of 64-bit args on
-        device. rev_bank_bits forces the legacy banked layout, rev_pair
-        forces the pair view, use_ptab=True opts into the interleaved
-        checkpoint table (ops.predict.pack_ptab — measured SLOWER on
-        v5e, kept as a flagged search-space variant; tests exercise all
-        layouts at small n). use_pred2=True ships the PWL table as the
-        pack_pred2 uint64 pair instead of the endpoint layouts —
-        prediction in 2 gather ops instead of 4, and FASTER in isolation
-        (375 vs 484 ms at 5M lanes), yet 0.65x end-to-end in the full
-        fast3 program (3.3M vs 5.1M q/s, both pair and pre-split quad
-        forms — a scheduling interaction, not u64-arg cost); flag-off
-        variant per docs/PERFORMANCE.md."""
+        Gathers want int32-indexable operands, so a rev with more than
+        2^31-1 entries (GRCh38-scale) ships 2-D (ops.query.Rows2D) by
+        default, or as its even/odd halves (ops.query.HalvesU32) with
+        rev_rows2d=False: two u32 gathers + a select reach any rank, and
+        none of the uint64 pair view's doubled device args (X64Split
+        temps; PairedU32 is flag-only). At the same scale int64/u64
+        tables ship pre-split as u32 — the X64-rewrite pass materializes
+        duplicate 32-bit copies of 64-bit args on device. rev_bank_bits
+        forces the legacy banked layout, rev_pair forces the pair view,
+        use_ptab=True opts into the interleaved checkpoint table
+        (ops.predict.pack_ptab). use_pred2=True ships the PWL table as
+        the pack_pred2 uint64 pair instead of the endpoint layouts —
+        prediction in 2 gather ops instead of 4. Both were measured
+        slower end to end where they were first tried and are flag-off
+        variants (docs/PERFORMANCE.md at commit 9faeb07); tests exercise
+        all layouts at small n. None of these layouts has been measured
+        on a GPU yet."""
         if not self._device:
             import jax.numpy as jnp
 
@@ -280,16 +278,16 @@ class SaplingIndex:
                 rev = SplitRanks(lo=_bank(self.rev), hi=_bank(self.rev_hi))
             elif rev_pair:
                 # flag-only: u64 args are materialized twice on device
-                # (X64Split temps) — OOMs v5e HBM at the >= 2^31-entry
-                # scale this targets (docs/PERFORMANCE.md)
+                # (X64Split temps) at the >= 2^31-entry scale this
+                # targets
                 rev = PairedU32.pack(rev)
             elif rev_rows2d or (big and bits is None
                                 and rev_rows2d is not False):
                 # ONE 2-D-indexed gather per rank lookup, zero overhead —
-                # the default at > 2^31 ranks: measured 1.31M vs 1.11M
-                # q/s (+18%) over HalvesU32 on the 3.1 Gbp bench
-                # (docs/PERFORMANCE.md); per-backend gather-law numbers
-                # in tools/microbench_gather.py
+                # the default at > 2^31 ranks, where it beat HalvesU32
+                # when first measured (docs/PERFORMANCE.md at commit
+                # 9faeb07); tools/microbench_gather.py measures the
+                # gather law of the device at hand
                 rev = Rows2D.pack(rev)
             elif big and bits is None:
                 rev = HalvesU32.pack(rev)  # 2 gathers; rev_rows2d=False
@@ -309,9 +307,8 @@ class SaplingIndex:
             pred2 = None
             pred2_bits = None
             if use_ptab is None:
-                # measured 10x SLOWER than the xy64+xhi16 repack on v5e
-                # and kernel-faults at 5M lanes (docs/PERFORMANCE.md:
-                # slice gathers give no op-count win); flag-off variant
+                # slice gathers gave no op-count win where first
+                # measured (ops.query.take_slice); flag-off variant
                 use_ptab = False
             p2 = (pack_pred2(xl64, yl64, 2 * self.k)
                   if use_pred2 and not use_ptab else None)
@@ -349,14 +346,12 @@ class SaplingIndex:
                 xlist, ylist = _ship_table_arrays(xl64, yl64, self.k,
                                                   self.n, slim=False)
             # uint64 word pairing halves probe gather granules but adds
-            # per-probe select work; it wins only in the granule-bound
-            # multi-Gbp regime — which is exactly when the per-rank
-            # prefix arrays are absent (measured: 0.89x at 4.6 Mbp,
-            # docs/PERFORMANCE.md). NOT at `big` (>= 2^31-rank) scale:
-            # there the rev halves alone are ~12.4 GB and the u64
-            # packed ARG's X64Split temps (2x the packed bytes) tipped
-            # the 3.1 Gbp bench into a TPU worker-crash OOM — u32 words
-            # cost one extra probe gather op per round instead.
+            # per-probe select work; it is used only when the per-rank
+            # prefix arrays are absent, where probes read the packed
+            # genome. NOT at `big` (>= 2^31-rank) scale: there the u64
+            # packed ARG's X64Split temps (2x the packed bytes) come on
+            # top of a multi-GB rev — u32 words cost one extra probe
+            # gather op per round instead.
             pk = (packops.words_to_u64(self.packed)
                   if self.prefix64 is None and not big else self.packed)
             self._device = {
@@ -484,9 +479,9 @@ def _ship_table_arrays(xl64, yl64, k: int, n: int, slim: bool):
     slim split storage (the >= 2^31-rank default): x has 2k bits (hi
     fits u16 for k <= 24) and y <= n fits u32 alone when n < 2^32 — a
     checkpoint ships as 10 bytes, not the 16 of full (u32 hi, u32 lo)
-    pairs. At GRCh38 scale that is ~0.4 GB of HBM args saved on top of
-    the on-device xy64+xhi16 repack temps (ops.predict
-    ._endpoints_packed), which HBM accounting must count too."""
+    pairs. At GRCh38 scale that is ~0.4 GB of device args saved on top
+    of the on-device xy64+xhi16 repack temps (ops.predict
+    ._endpoints_packed), which memory accounting must count too."""
     import jax.numpy as jnp
 
     if not slim:

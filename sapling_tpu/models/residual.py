@@ -1,4 +1,4 @@
-"""Learned residual models: the NN/ research pipeline, TPU-first.
+"""Learned residual models: the NN/ research pipeline, as batched JAX.
 
 The reference trains ONE PyTorch MLP per suffix-array chunk in a separate
 process per chunk (reference: NN/fit.py:185-277 — MLP 1->s->...->1 with

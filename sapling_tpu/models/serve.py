@@ -18,11 +18,10 @@ member of a duplicate run is returned follows the predictor's search
 order (as it does between different PWL bucket counts). Absent-query
 status is predictor-dependent in the reference too.
 
-Serving cost model (TPU v5e, docs/PERFORMANCE.md gather law): prediction
-is 4 per-lane param gathers (w1/b1/w2 rows + chunk lookup) of s elements
-each — O(s) gather-lanes per query vs the PWL's 3 fixed gathers. The NN
-engine pays that for a (potentially) much tighter `most` window; the
-honest A/B lives in docs/measured.json.
+Serving cost model: prediction is 4 per-lane param gathers (w1/b1/w2 rows
++ chunk lookup) of s elements each — O(s) gather-lanes per query vs the
+PWL's 3 fixed gathers. The NN engine pays that for a (potentially) much
+tighter `most` window; tools/bench_nn_query.py is the A/B.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """ctypes bindings to the native C++ substrate (SA-IS, Kasai LCP, SW traceback).
 
 Host-side, build-time / per-best-candidate work lives here; all batched
-query-time compute is JAX/XLA/Pallas (see sapling_tpu.ops).
+query-time compute is JAX/XLA plus the CUDA kernels of native/cuda
+(see sapling_tpu.ops).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 // saca.cpp — suffix-array construction (SA-IS) + Kasai LCP for sapling-tpu.
 //
-// Host-side substrate of the TPU-native framework: the suffix array is built
-// once per genome on the host and then shipped to device HBM as int32/int64
+// Host-side substrate of the framework: the suffix array is built once per
+// genome on the host and then shipped to device memory as int32/int64
 // arrays. This replaces the reference's DC3 (reference: src/sa.h:82-183) and
 // its libdivsufsort offline pipeline (reference: suffixarray/refToSuffixArray.sh)
 // with a fresh SA-IS ("induced sorting") implementation, which is O(n) with

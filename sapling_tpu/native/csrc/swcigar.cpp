@@ -1,6 +1,6 @@
 // swcigar.cpp — banded affine-gap traceback for winning alignments.
 //
-// The TPU kernels (sapling_tpu/ops/sw.py) score every candidate window in
+// The device kernels (sapling_tpu/ops/sw.py) score every candidate window in
 // batch and produce endpoints; only the single winning candidate per read
 // needs a CIGAR. That traceback is inherently sequential, tiny (the band is
 // a few columns wide), and runs once per read — host-native C++ is the

@@ -59,7 +59,7 @@ def words_to_u64(words: np.ndarray) -> np.ndarray:
 
     Same bit layout, half the gather granules: a probe needing uint32
     words [w0, w0+wq] fetches ceil((wq+2)/2) uint64s instead of wq+1
-    uint32s — the engine is gather-granule bound (docs/PERFORMANCE.md),
+    uint32s — the engine is gather-granule bound,
     so this is the device-side genome representation (ops.query.probe_at
     accepts either dtype and selects words by position parity)."""
     w = words
@@ -190,9 +190,8 @@ def pack_queries(codes: np.ndarray) -> np.ndarray:
     """Pack a batch of equal-length queries [B, L] into WORD-MAJOR words
     [ceil(L/16), B] (bits beyond L in the last word are zero).
 
-    Word-major because TPU tiling pads the last two axes to (8, 128): a
-    [B, 2] device array would occupy 64x its bytes in HBM, while [2, B]
-    is tight (docs/PERFORMANCE.md).
+    Word-major because a tiled device layout pads small trailing axes:
+    [2, B] is tight where [B, 2] need not be.
     """
     b, length = codes.shape
     wq = (length + BASES_PER_WORD - 1) // BASES_PER_WORD

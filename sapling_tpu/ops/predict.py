@@ -5,10 +5,10 @@ The reference evaluates the PWL index in C++ `double`
 
     predict = (long long)(.5 + ylo + (yhi - ylo) * ((x - xlo) * 1. / (xhi - xlo)))
 
-This TPU backend's float64 division is *not* IEEE-exact (it is emulated), so
-we instead compute the same quantity with exact int64 rational arithmetic:
+An accelerator's float64 division need not be IEEE-exact (some backends
+emulate it), so we instead compute the same quantity with exact int64 rational arithmetic:
 round-half-up of ylo + M*N/D where M = yhi-ylo >= 0, N = x-xlo, D = xhi-xlo.
-This is deterministic across CPU/TPU and agrees with the C++ double except in
+This is deterministic across backends and agrees with the C++ double except in
 pathological double-rounding cases (none observed on the conformance corpora;
 tests/test_pwl.py checks against the float64 oracle).
 
@@ -47,13 +47,12 @@ def pack_ptab(xlist, ylist, bounds=None):
     row j at [4j, 4j+4) = (x_low32, x_high16, y, bounds_word_or_0).
 
     ONE sliced 8-u32 gather (ops.query.take_slice) fetches BOTH
-    endpoints of a bucket. FLAG-OFF VARIANT: measured ~10x SLOWER than
-    the 4-gather xy64+xhi16 repack on v5e and kernel-faults at 5M lanes
-    — slice gathers cost per-ELEMENT like independent takes, not
-    per-op (docs/PERFORMANCE.md 2026-08-17). Kept behind
-    device_arrays(use_ptab=True) with bit-parity tests to document the
-    search space. Flat 1-D layout on purpose: a [R, 4] device array
-    would pad its trailing axis to 128 lanes (32x HBM blowup). Exact
+    endpoints of a bucket. FLAG-OFF VARIANT: measured slower than the
+    4-gather xy64+xhi16 repack where first tried — slice gathers cost
+    per-ELEMENT like independent takes, not per-op (docs/PERFORMANCE.md
+    at commit 9faeb07). Kept behind device_arrays(use_ptab=True) with
+    bit-parity tests to document the search space. Flat 1-D layout on
+    purpose: a tiled device layout pads a small trailing axis. Exact
     whenever y < 2^32 (n <= 4.3 Gbp) and x < 2^48 (k <= 24) — the same
     gate as _endpoints_packed. The bounds word ((over << 16) | under,
     index.pwl.bucket_bounds) rides in the spare slot so the
@@ -96,12 +95,11 @@ def pack_pred2(xlist, ylist, kbits: int):
     (x2[j], y2[j]) holding (xlo, d=xhi-xlo, ylo, m=yhi-ylo) — the four
     quantities prediction actually consumes — so predict_pwl costs 2
     8-byte gather ops instead of the 4 of the xy64+xhi16 endpoint
-    repack (gather ops are the dominant query cost and their price is
-    per-lane regardless of granule, docs/PERFORMANCE.md). FLAG-OFF
-    variant: faster in isolation (375 vs 484 ms at 5M lanes) but 0.65x
-    end-to-end inside the fast3 program — in both pair and pre-split
-    quad form, so not a u64-argument cost; an unexplained scheduling
-    interaction. Kept (with bit-parity tests) as search-space record.
+    repack (gather ops were the dominant query cost where first
+    measured). FLAG-OFF variant: faster in isolation but slower end to
+    end inside the fast3 program — in both pair and pre-split quad form,
+    so not a u64-argument cost; an unexplained scheduling interaction
+    (docs/PERFORMANCE.md at commit 9faeb07). Kept (with bit-parity tests) as search-space record.
 
     Layout (b = 64 - kbits, spill = max(0, nd - b) where nd = bits of
     max d, nm = bits of max m):
@@ -141,10 +139,10 @@ def pack_pred2(xlist, ylist, kbits: int):
 
 def _u64_field(hi, lo, shift: int, width: int):
     """(word >> shift) & ((1<<width)-1) of a uint64 decomposed into u32
-    halves (hi, lo), with STATIC shift/width — pure 32-bit VPU ops plus
-    one i64 assemble only when the field straddles the half boundary
-    (the TPU has no 64-bit integer lanes; emulated u64 shifts cost
-    several ops each, so fields are cut out of the halves directly)."""
+    halves (hi, lo), with STATIC shift/width — pure 32-bit ops plus one
+    i64 assemble only when the field straddles the half boundary (u64
+    shifts emulate as several 32-bit ops each, so fields are cut out of
+    the halves directly)."""
     i64 = jnp.int64
     if width <= 0:
         return jnp.zeros(hi.shape, i64)
@@ -164,7 +162,7 @@ def _parts_pred2(bucket, pred2, pred2_bits, kbits: int):
     small-table default — or its pre-split (x2hi, x2lo, y2hi, y2lo)
     uint32 quad — FOUR 4-byte gathers but no X64-rewrite arg doubling
     (u64 jit args are materialized twice on device, which matters when
-    the bucket table is GBs; docs/PERFORMANCE.md)."""
+    the bucket table is GBs)."""
     bx, nm, spill = pred2_bits
 
     def take_halves(a):
@@ -190,9 +188,9 @@ def _endpoints_packed(bucket, xlist, ylist, need_hi: bool = True):
 
     The int64 tables cost two u32 gather OPS per value under the
     X64-rewrite — 8 per prediction, measured as the single largest cost
-    of a k=21 query (docs/PERFORMANCE.md; gather ops cost per-lane
-    throughput regardless of masking, so any per-lane fallback scheme
-    loses). Deterministic repack: xy64[j] = (x_low32 << 32) | y, and the
+    of a k=21 query where first profiled (docs/PERFORMANCE.md at commit
+    9faeb07; gather ops cost per-lane throughput regardless of masking,
+    so any per-lane fallback scheme loses). Deterministic repack: xy64[j] = (x_low32 << 32) | y, and the
     x high bits of BOTH endpoints of bucket j ride one uint32
     xhp[j] = (xhi16[j] << 16) | xhi16[j+1] — exact for every entry
     whenever y < 2^32 (n <= 4.3 Gbp) and x < 2^48 (k <= 24), i.e. 3
@@ -264,7 +262,7 @@ def predict_pwl(x, xlist, ylist, kbits: int, buckets: int, n: int, xp=jnp,
         if isinstance(arr, tuple):
             # split storage (hi, lo): avoids the X64-rewrite pass
             # materializing duplicate 32-bit copies of s64 arguments on
-            # device (docs/PERFORMANCE.md); hi may be u16 (x fits 48
+            # device; hi may be u16 (x fits 48
             # bits) or u32
             hi = xp.take(arr[0], i).astype(jnp.int64 if xp is jnp else np.int64)
             lo = xp.take(arr[1], i).astype(jnp.int64 if xp is jnp else np.int64)
@@ -278,7 +276,7 @@ def predict_pwl(x, xlist, ylist, kbits: int, buckets: int, n: int, xp=jnp,
     if not repack_ok and n < (1 << 32):
         # The repack itself is exact for every y < 2^32 (docstring of
         # _endpoints_packed); above 2^31 bases it is gated off only for
-        # its HBM temps (~12 B/checkpoint next to a ~12.4 GB rev).
+        # its device temps (~12 B/checkpoint next to a multi-GB rev).
         # SAPLING_PRED_REPACK_BIG=1 opts in for the end-to-end A/B.
         import os
 
@@ -286,7 +284,7 @@ def predict_pwl(x, xlist, ylist, kbits: int, buckets: int, n: int, xp=jnp,
     if xp is jnp and repack_ok and kbits <= 48:
         # Below 2^31 bases the xy64+xhi16 repack temps (10 B/checkpoint
         # on device) are affordable and save 2-4 gather ops. Above —
-        # GRCh38-scale, where rev alone is ~12.4 GB of HBM — prediction
+        # GRCh38-scale, where rev alone is ~12.4 GB — prediction
         # gathers straight from the slim split arguments instead
         # ((u16 hi, u32 lo) xlist + u32 ylist, index.sapling
         # .device_arrays): 6 gather ops, zero repack temps.

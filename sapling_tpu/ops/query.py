@@ -1,7 +1,7 @@
-"""Batched TPU query engine: PWL predict -> escalating window -> masked
+"""Batched query engine: PWL predict -> escalating window -> masked
 binary-search refinement.
 
-This is the TPU-first inversion of the reference's scalar, pointer-chasing
+This is the batched inversion of the reference's scalar, pointer-chasing
 query path (reference: src/sapling_api.h:98-248). One jitted array program
 maps [B] packed queries to [B] genome positions:
 
@@ -49,13 +49,11 @@ class Probe(NamedTuple):
 def take_slice(arr, idx, m: int):
     """Gather m CONSECUTIVE elements per lane as one gather: [..., m].
 
-    MEASURED NO WIN on the v5e backend (docs/PERFORMANCE.md 2026-08-17):
-    a slice gather costs the same as m independent single-element
-    gathers at m=2-3 (cost scales with lanes x elements-per-lane, not
-    op count — only wider element TYPES, e.g. the uint64 pair granule,
-    reduce cost), and m=8 on a 5M-lane batch FAULTS THE TPU KERNEL.
-    Kept only for the flag-off ptab variant (ops.predict.pack_ptab);
-    do not put this on a default path. Start indices are clamped to
+    Measured no win where it was first tried (docs/PERFORMANCE.md at
+    commit 9faeb07): a slice gather cost the same as m independent
+    single-element gathers, and m=8 on a 5M-lane batch failed to run.
+    Not yet measured on a GPU. Kept only for the flag-off ptab variant
+    (ops.predict.pack_ptab); do not put this on a default path. Start indices are clamped to
     len-m — callers must pad the operand so in-range lanes never clamp
     (a clamp SHIFTS the window)."""
     dn = jax.lax.GatherDimensionNumbers(
@@ -68,13 +66,13 @@ def take_slice(arr, idx, m: int):
 
 class PairedU32(NamedTuple):
     """A uint32 array with >= 2^31 elements, stored as its uint64 pair
-    view so one gather op reaches any element (XLA TPU gathers need
-    int32-indexable operands). FLAG-ONLY on v5e: uint64 jit ARGUMENTS
-    are materialized TWICE on device — the X64SplitHigh/Low custom
-    calls keep both u32 halves as whole-program temps next to the u64
-    arg buffer — so a >= 2^31-entry rev (>= 8 GiB) always blows the
-    16 GiB HBM (measured OOM: 26.1 G for a 3.1 Gbp index,
-    docs/PERFORMANCE.md). HalvesU32 is the default at this scale."""
+    view so one gather op reaches any element (gathers want
+    int32-indexable operands). FLAG-ONLY: uint64 jit ARGUMENTS can be
+    materialized TWICE on device — the X64SplitHigh/Low custom calls
+    keep both u32 halves as whole-program temps next to the u64 arg
+    buffer — which once ran a 3.1 Gbp index out of device memory
+    (docs/PERFORMANCE.md at commit 9faeb07). HalvesU32 is the default at
+    this scale."""
 
     w64: jnp.ndarray  # uint64 [ceil(len/2)]
 
@@ -146,9 +144,8 @@ def probe_at(packed, pos, q_words_t, *, n: int, length: int) -> Probe:
     packed:    uint32 [n_words+pad] big-endian 2-bit genome
     pos:       int [...] text positions (must be in [0, n)); any shape
     q_words_t: uint32 [WQ, B] packed queries, WORD-MAJOR (bits beyond L
-               zeroed). TPU tiling pads the last two axes to (8, 128), so
-               per-word [B] rows — never [B, small] arrays — are the only
-               layout that doesn't blow up HBM (docs/PERFORMANCE.md).
+               zeroed). Per-word [B] rows, never [B, small] arrays: a
+               tiled device layout pads small trailing axes.
 
     All per-word work uses separate [B]-shaped 1-D arrays for the same
     reason; wq is tiny and static so the Python loop fuses flat.
@@ -163,8 +160,7 @@ def probe_at(packed, pos, q_words_t, *, n: int, length: int) -> Probe:
         # for either parity of w0, select per lane — 2 granules instead
         # of 3 for k=21 probes on the no-prefix (multi-Gbp) path, bit-
         # for-bit the same words. (A take_slice fetch of the same words
-        # measured exactly equal at m=2-3 and kernel-faults at m=8 —
-        # docs/PERFORMANCE.md — so per-word takes stay.)
+        # measured no better — see take_slice — so per-word takes stay.)
         u0 = (pos >> 5).astype(jnp.int32)
         par_odd = ((pos >> 4) & 1) == 1
         w64 = []
@@ -226,8 +222,8 @@ class SplitRanks(NamedTuple):
     """rank->pos values split 5 bytes/rank for n >= 2^32 genomes (wheat,
     14.3 Gbp): lo = low 32 bits (uint32), hi = bits 32.. (uint8). int64
     storage would need 8 B/rank — the split is what lets a wheat-scale
-    rev shard fit next to the replicated packed genome in one chip's HBM
-    (docs/PERFORMANCE.md). Each leaf may itself be a tuple of 1-D banks."""
+    rev shard fit next to the replicated packed genome in one device's
+    memory. Each leaf may itself be a tuple of 1-D banks."""
 
     lo: object  # uint32 array (or tuple of banks)
     hi: object  # uint8 array (or tuple of banks)
@@ -235,7 +231,7 @@ class SplitRanks(NamedTuple):
 
 def take_rank(rev, idx):
     """Gather from the rank->pos array: a flat [n] array, a SplitRanks
-    pair, or — for n beyond int32 gather range (XLA TPU gathers need
+    pair, or — for n beyond int32 gather range (gathers want
     32-bit-indexable operands) — a TUPLE of 1-D power-of-two-sized banks
     (2-D banking would pad the small sublane axis; 1-D arrays tile
     waste-free). Each bank is gathered with clamped int32 offsets and the
@@ -278,7 +274,7 @@ def take_rank(rev, idx):
 def _psum_pick(v, axis):
     """Combine a masked per-shard gather (exactly one shard contributes a
     nonzero value per lane) with one psum over the index-shard axis.
-    uint64 values ride as uint32 pairs — the TPU has no 64-bit lanes."""
+    uint64 values ride as uint32 pairs (collectives on 32-bit words)."""
     if v.dtype == jnp.uint64:
         pair = jax.lax.bitcast_convert_type(v, jnp.uint32)
         return jax.lax.bitcast_convert_type(
@@ -331,10 +327,10 @@ def make_rank_probe(packed, rev, prefix, q_words, *, n: int, length: int,
     """
     use_prefix = prefix is not None and length <= 32
     if use_prefix:
-        # All compare math in 32-bit halves: the TPU has no native 64-bit
-        # integer lanes, so uint64 ops would each emulate as several VPU
-        # ops. The prefix stays a uint64 array (one 8-byte gather granule);
-        # the gathered value is bitcast to its two uint32 words.
+        # All compare math in 32-bit halves: 64-bit integer ops emulate
+        # as several 32-bit ops on the device. The prefix stays a uint64
+        # array (one 8-byte gather granule); the gathered value is
+        # bitcast to its two uint32 words.
         wq = (length + BASES_PER_WORD - 1) // BASES_PER_WORD
         qhi_full = q_words[0]
         qlo_full = q_words[1] if wq > 1 else jnp.zeros_like(q_words[0])
@@ -448,7 +444,7 @@ def _masked_binary_search2(probe_fn, lo, hi, res, resolved):
     probes (lo1+1 == m1 on the left, m2+1 == m3 on the right, both
     guaranteed when the half-interval has size 2). Identical results to
     the one-level loop in half the rounds; the engine is
-    gather-round-latency bound (docs/PERFORMANCE.md).
+    gather-round-latency bound.
     """
     neg = jnp.array(-1, res.dtype)
 
@@ -549,7 +545,7 @@ def _compact_deep(resolved, lo, hi, width: int, cap: int):
     (idx32 [cap] clamped in-range, valid [cap], deep [B]).
 
     Rationale: a whole-batch while_loop round costs full-batch gather
-    throughput regardless of lane masking (docs/PERFORMANCE.md), and its
+    throughput regardless of lane masking, and its
     trip count is the MAX bisection depth over lanes — so a ~5% tail
     with a (max_over+max_under)-wide window multiplies the other 95%'s
     cost by ~log(max/most). Compacting the tail into a [cap] batch makes
@@ -558,9 +554,9 @@ def _compact_deep(resolved, lo, hi, width: int, cap: int):
     deep = ~resolved & ((hi - lo) > width)
     # _compact_indices, not jnp.nonzero: nonzero's bool cumsum promotes
     # to int64 under the package's global x64, and the resulting
-    # (u32,u32)-pair reduce-window wants a ~4B-byte scoped-VMEM buffer —
-    # fails to compile at 5M lanes on v5e (measured, flaky with program
-    # shape)
+    # (u32,u32)-pair reduce-window once failed to compile at 5M lanes
+    # (docs/PERFORMANCE.md at commit 9faeb07); whether the plain form
+    # compiles on a GPU is still to be measured
     idxs = _compact_indices(deep, cap)
     valid = idxs < b
     return jnp.minimum(idxs, b - 1).astype(jnp.int32), valid, deep
@@ -598,9 +594,9 @@ def _compact_indices(mask, cap: int):
     fill = b for absent. Equivalent to jnp.nonzero(mask, size=cap,
     fill_value=b)[0] but built from a BLOCKED cumsum (per-512-lane-row
     scans + one tiny row-offset scan) plus one scatter: XLA's fused
-    lowering of a large-`size` nonzero wants the whole B-lane scan in
-    scoped VMEM and fails to compile at 5M lanes on v5e (measured);
-    the blocked form streams through HBM."""
+    lowering of a large-`size` nonzero once failed to compile at 5M
+    lanes (docs/PERFORMANCE.md at commit 9faeb07); the blocked form
+    streams through device memory."""
     b = mask.shape[0]
     s = 512
     pb = -(-b // s) * s
@@ -619,7 +615,7 @@ def _pack_pred_dir(pred, dir_right):
     via bit-not (enc = ~pred when dir is set; pred >= 0 always). One
     compaction gather instead of two — gather ops cost per-lane
     throughput, so halving the per-lane state fetched during compaction
-    matters (docs/PERFORMANCE.md)."""
+    matters."""
     return jnp.where(dir_right, ~pred, pred)
 
 
@@ -753,7 +749,7 @@ def _plquery_fast3(rev, prefix3, q3, x, xlist, ylist, *, n, length, k,
     if compact_unresolved and bounds is None:
         # Everything after the prediction probe runs in ONE COMPACTED
         # [cap] batch: a well-tuned index resolves most lanes at the
-        # prediction itself (~70% on the 4.6 Mbp headline), so the edge
+        # prediction itself (most lanes at 4.6 Mbp), so the edge
         # probe and every bisect round would otherwise pay full-batch
         # gather-lane throughput for a minority of active lanes.
         # Decision sequence per lane is identical — only the execution
@@ -761,9 +757,8 @@ def _plquery_fast3(rev, prefix3, q3, x, xlist, ylist, *, n, length, k,
         # capacity inside _fast3_refine) falls through to a lax.cond-
         # gated full-width pass — identical decisions, zero runtime cost
         # when (as virtually always) the compacted trip covers everyone.
-        # The compaction must stay at TOP level: a nonzero inside a
-        # while_loop body wants its B-lane cumsum in scoped VMEM and
-        # fails to compile at 5M lanes (measured, v5e).
+        # The compaction stays at TOP level: a nonzero inside a
+        # while_loop body once failed to compile at 5M lanes.
         b = rank_res.shape[0]
         cap = _compact_cap(b, compact_cap if compact_cap is not None
                            else max(1024, b >> 1))
@@ -1062,9 +1057,9 @@ def plquery_batch(
     (never falls back to full-width phases). Subsumes compact_escalate
     when the fast3 path is taken. compact_cap defaults to B/2 here —
     size it >= the unresolved fraction (1 - prediction-probe hit rate:
-    measured 29% at 4.6 Mbp nb=22, 47% at 230 Mbp nb=26) with margin;
-    a too-small cap stays CORRECT but pays the full-width fallback
-    every launch (measured 0.64x at 230 Mbp with a 37.5% cap).
+    29% at 4.6 Mbp nb=22, 47% at 230 Mbp nb=26 — properties of the
+    index, not the device) with margin; a too-small cap stays CORRECT
+    but pays the full-width fallback every launch.
 
     pred64: precomputed [B] int64 predicted ranks — replaces the PWL
     prediction entirely (the NN-predictor engine, models.serve, uses
@@ -1115,10 +1110,11 @@ def plquery_batch(
     # (:133-153) — as register-only arithmetic over the prefetched bits.
     # Identical results, ~1 HBM round instead of ~2+log2(W).
     if window_scan is None:
-        # Measured on TPU v5e: the sequential cascade wins — masked lanes
-        # re-gather index 0 (cached), so its true HBM traffic is active
-        # lanes only, while the wide window pays W probes per lane always
-        # (10.3M q/s sequential vs 7.1M q/s windowed on the 4.6Mbp bench).
+        # The sequential cascade won where this was first measured
+        # (docs/PERFORMANCE.md at commit 9faeb07): masked lanes re-gather
+        # index 0 (cached), so its true traffic is active lanes only, while the
+        # wide window pays W probes per lane always. Not yet measured on
+        # a GPU.
         window_scan = False
     if window_scan:
         wsz = most_over + most_under + 1
@@ -1177,8 +1173,8 @@ def plquery_batch(
     elif multiprobe and prefix is not None and length <= 32:
         # prefix probes vectorize over any rank shape: fuse the prediction
         # probe and BOTH 'most'-window edge probes into one gather round
-        # (3 x 12 B/lane beats two dependent ~35 ms rounds — the engine is
-        # gather-round-latency bound, see docs/PERFORMANCE.md)
+        # (one gather round instead of two dependent ones — the engine is
+        # gather-round-latency bound)
         pos_p, pp = probe_rank(pred)
         pos_l, pl = probe_rank(e_left)
         pos_r, pr = probe_rank(e_right)

@@ -1,11 +1,11 @@
 """Device-mesh construction for data-parallel query scale-out.
 
 The reference is single-threaded, single-process CPU code with no
-parallelism of any kind (SURVEY.md §2); the TPU-native scale-out axis is
+parallelism of any kind (SURVEY.md §2); the scale-out axis here is
 data parallelism over the query/read stream: the genome, suffix-array rank
 arrays, and PWL table are read-only and replicated per device, while query
 batches shard over the "dp" mesh axis. Statistics (per-bin error
-histograms, hit counts) reduce over ICI collectives.
+histograms, hit counts) reduce over collectives (NCCL over NVLink on GPUs).
 
 A second "tp" axis is used by the learned-residual trainer
 (sapling_tpu.models.residual) to shard MLP hidden units.

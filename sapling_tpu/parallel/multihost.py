@@ -1,20 +1,19 @@
 """Multi-host orchestration: replicated index, sharded reads, ordered SAM.
 
 The reference has no distributed anything (SURVEY.md §2: inter-tool
-communication is files on disk). The TPU-native scale-out:
+communication is files on disk). The scale-out here:
 
-  * `jax.distributed.initialize` connects N hosts; each host builds or
-    loads the SAME index artifact (read-only, replicated — GRCh38 packs to
-    ~1.2 GB packed genome + 12 GB rank arrays per host).
-  * The FASTQ is split into per-host shards by record round-robin blocks
-    (deterministic given num_hosts), each host aligns its shard on its
-    local chips (dp over lanes), and writes SAM records tagged with their
-    global record index.
+  * `jax.distributed.initialize` connects N processes, one per GPU; each
+    builds or loads the SAME index artifact (read-only, replicated —
+    GRCh38 packs to ~1.2 GB packed genome + 12 GB rank arrays).
+  * The FASTQ is split into per-process shards by contiguous record
+    blocks (deterministic given the process count), each process aligns
+    its shard on its own card, and writes SAM records in record order.
   * SAM shards concatenate in record order, so the final file is
     byte-identical to a single-host run — the reference's single-stream
     output contract, kept under data parallelism.
 
-On a single machine this degrades gracefully: one host, shard 0 of 1.
+A single process degrades gracefully: shard 0 of 1.
 """
 
 from __future__ import annotations
@@ -24,9 +23,16 @@ import os
 
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
-                           process_id: int | None = None) -> tuple[int, int]:
-    """Connect to the pod job (no-op single-host fallback). Returns
-    (process_id, num_processes)."""
+                           process_id: int | None = None,
+                           local_device_ids: list[int] | None = None
+                           ) -> tuple[int, int]:
+    """Connect to the multi-process job (no-op for one process). Returns
+    (process_id, num_processes).
+
+    Each process opens only its own card: local_device_ids defaults to
+    [process_id], one process per GPU of one host (a JAX process reserves
+    most of every card it opens, so a second process on a card fails for
+    want of memory). Pass the ids explicitly for other layouts."""
     import jax
 
     if coordinator and num_processes and num_processes > 1:
@@ -34,6 +40,8 @@ def initialize_distributed(coordinator: str | None = None,
             coordinator_address=coordinator,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=(local_device_ids if local_device_ids
+                              is not None else [process_id]),
         )
     return jax.process_index(), jax.process_count()
 
@@ -53,7 +61,7 @@ def count_fastq_records(path: str) -> int:
     Validates the 4-line frame as it streams: every record's first line
     must start with '@' and its third with '+' — a blank or stray line
     would otherwise shift every later record boundary and split_fastq
-    would silently cut records across shard files (ADVICE r3)."""
+    would silently cut records across shard files."""
     n = 0
     with open(path, "rb") as f:
         for i, line in enumerate(f):
@@ -113,8 +121,8 @@ def align_shard(index, fastq_shard: str, out_sam_body: str, cfg=None) -> None:
     aligner = SeedExtendAligner(index, cfg)
     with open(out_sam_body, "w") as f:
         buf = list(read_fastq(fastq_shard))
-        # measured-optimal block size + 2-deep host/device pipeline
-        # (docs/PERFORMANCE.md "Aligner block anatomy"); in-order yield
+        # block size + 2-deep host/device pipeline of align_blocks;
+        # in-order yield
         # keeps shard bodies byte-deterministic
         blocks = (buf[lo : lo + 8192] for lo in range(0, len(buf), 8192))
         for ars in aligner.align_blocks(blocks):

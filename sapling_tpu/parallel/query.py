@@ -1,13 +1,13 @@
 """Data-parallel sharded query execution.
 
-TPU-native equivalent of running N independent copies of the reference's
+The equivalent of running N independent copies of the reference's
 single-threaded query loop (reference: src/sapling_example.cpp:133-141),
 expressed as ONE pjit-ed program: query lanes shard over the mesh "dp"
 axis, the index arrays (packed genome, rev, PWL table) are replicated, and
 XLA compiles the same predict -> window -> masked-binary-search program
 per shard with no cross-device traffic on the query path. Collectives
 appear only in the statistics reductions (psum of error histograms / hit
-counts), riding ICI.
+counts).
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ class ShardedQueryEngine:
         self.packed = jax.device_put(pk, rep)
         self.rev = jax.device_put(index.rev, rep)
         if use_pred2:
-            # flag-off variant: 2-gather prediction measured 0.65x
-            # end-to-end despite fewer ops (docs/PERFORMANCE.md)
+            # flag-off variant: 2-gather prediction measured slower end
+            # to end despite fewer ops (ops.predict.pack_pred2)
             from ..ops.predict import pack_pred2
 
             p2 = pack_pred2(t.xlist, t.ylist, 2 * index.k)

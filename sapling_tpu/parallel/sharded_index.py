@@ -1,19 +1,19 @@
-"""Index-sharded query execution: genomes bigger than one chip's HBM.
+"""Index-sharded query execution: genomes bigger than one device's memory.
 
 The data-parallel engine (parallel.query) replicates the index per device
-— fine up to GRCh38 scale (~13 GB of hot arrays fits a v5e chip), but the
+— fine up to GRCh38 scale (~13 GB of hot arrays), but the
 reference's largest published benchmark genome is wheat at 14.3 Gbp
 (reference: eval/TimingPlot/plot.py:16), whose rank array alone is 72 GB
 at 40-bit positions. The reference handles that scale by int64-patching
 libdivsufsort (reference: suffixarray/refToSuffixArray.sh:12) and paying
-~369 s per 5M queries on one CPU thread; the TPU-native answer is to
+~369 s per 5M queries on one CPU thread; the answer here is to
 shard the big per-RANK arrays (rev, probe prefixes) by contiguous
 suffix-array rank ranges over a mesh axis "idx", keep the small packed
 genome + PWL table replicated, and combine each probe's local masked
-gather with one psum over "idx" riding ICI.
+gather with one psum over "idx" (NCCL over NVLink on GPUs).
 
 Why this is fast: probes for ranks owned elsewhere gather local index 0
-(cached — no HBM traffic), so total gather traffic per probe round equals
+(cached — no device-memory traffic), so total gather traffic per probe round equals
 the replicated engine's, split across the shards; the only added cost is
 one [B]-sized psum per gather. Decision sequences are untouched, so
 results are bit-identical to the single-device engine (and hence to the
@@ -23,11 +23,11 @@ Composes with data parallelism on a 2-D ("dp", "idx") mesh: query lanes
 shard over "dp", every dp row holds one full copy of the index spread
 over its "idx" columns.
 
-HBM budget, wheat 14.3 Gbp on 8 chips (v5e, 16 GB):
-  rev as SplitRanks (uint32 lo + uint8 hi = 5 B/rank) sharded  -> 8.9 GB
-  packed 2-bit genome, replicated                              -> 3.6 GB
-  PWL table 2^26 buckets int64 x+y, replicated                 -> 1.1 GB
-  total per chip                                               ~ 13.6 GB
+Memory budget, wheat 14.3 Gbp on idx=4 (arithmetic from the shapes):
+  rev as SplitRanks (uint32 lo + uint8 hi = 5 B/rank) sharded  -> 17.9 GB
+  packed 2-bit genome, replicated                              ->  3.6 GB
+  PWL table 2^26 buckets int64 x+y, replicated                 ->  1.1 GB
+  total per device                                             ~ 22.6 GB
 (per-rank prefix arrays are the first thing to drop at this scale;
 SaplingIndex.build already gates them on cfg.prefix_max_n.)
 """

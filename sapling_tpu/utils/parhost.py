@@ -15,6 +15,7 @@ indexes in minutes, not hours, on a small host.
 from __future__ import annotations
 
 import os
+import sys
 
 # Big read-only inputs for the current parallel region. Set by run_forked
 # immediately before the fork so workers see them via copy-on-write
@@ -40,13 +41,17 @@ def run_forked(fn, spans, context: dict, workers: int | None = None):
     fn must be a module-level function (pickled by reference); it reads
     its big inputs from parhost.ctx(), which the forked children inherit
     without copying. workers=1 (or a single span) degrades to a serial
-    loop with identical semantics.
+    loop with identical semantics, and so does any call made after a JAX
+    backend has started: forking a process that holds the runtime's
+    threads (and, on a GPU, a CUDA context) is unsafe.
     """
     global _CTX
     spans = list(spans)
     if workers is None:
         workers = default_workers()
     workers = min(workers, len(spans)) or 1
+    if workers > 1 and _jax_started():
+        workers = 1
     prev = _CTX
     _CTX = context
     try:
@@ -58,6 +63,11 @@ def run_forked(fn, spans, context: dict, workers: int | None = None):
             return list(pool.imap_unordered(fn, spans))
     finally:
         _CTX = prev
+
+
+def _jax_started() -> bool:
+    xb = sys.modules.get("jax._src.xla_bridge")
+    return xb is not None and xb.backends_are_initialized()
 
 
 def spans_of(m: int, chunk: int):

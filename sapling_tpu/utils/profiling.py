@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is wall-clock around the query loop
 (reference: src/sapling_example.cpp:134-141) and cout progress lines. The
-TPU equivalents:
+equivalents here:
   * device-fenced timers (block_until_ready before/after) so numbers mean
     device time, not dispatch time;
   * jax.profiler traces viewable in XProf/TensorBoard;

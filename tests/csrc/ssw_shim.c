@@ -1,6 +1,6 @@
 /* Test-only shim: links the REFERENCE's vendored ssw.c (read-only at
  * /root/reference/src/ssw.c) into a tiny C ABI so pytest can compare our
- * TPU Smith-Waterman engine against the reference implementation
+ * batched Smith-Waterman engine against the reference implementation
  * bit-for-bit. This is an oracle harness, not framework code — the .so is
  * built into a gitignored directory by tests/test_sw.py. */
 #include <stdint.h>

@@ -2,7 +2,7 @@
 
 A deliberately slow, string-based reimplementation of the C++ reference
 (/root/reference/src/sapling_api.h, sa.h, binarysearch.cpp) used as the
-conformance ground truth for the vectorized TPU engine. Every method cites
+conformance ground truth for the vectorized engine. Every method cites
 the reference lines it mirrors.
 """
 
@@ -213,7 +213,7 @@ class OracleSapling:
                            and s[olcp] > self.ref[hi_idx + olcp]):
                         if hi == self.n - 1:
                             # The C++ loop (sapling_api.h:186-196) cannot
-                            # advance and livelocks here; the TPU kernel's
+                            # advance and livelocks here; the batched kernel's
                             # stuck rule sets lo=hi and proceeds.
                             lo = hi
                             break
@@ -248,7 +248,7 @@ class OracleSapling:
                            and s[olcp] < self.ref[lo_idx + olcp]):
                         if lo == 0:
                             # C++ would underflow size_t lo (:235-236); the
-                            # TPU kernel's stuck rule sets hi=lo and proceeds.
+                            # batched kernel's stuck rule sets hi=lo and proceeds.
                             hi = lo
                             break
                         hi = lo

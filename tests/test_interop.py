@@ -143,8 +143,7 @@ def test_errors_text_byte_identical(ref_example_bin, tmp_path):
 def test_npz_mmap_and_skip_load(tmp_path):
     """load_npz(mmap=True) maps large members in place of copying and
     skip= leaves members out; a SaplingIndex loaded either way queries
-    identically to the eager load (VERDICT r3 weak #6 — amortized
-    big-artifact loading)."""
+    identically to the eager load (amortized big-artifact loading)."""
     import numpy as np
 
     g = uniform_genome(300_000, seed=13)

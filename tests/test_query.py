@@ -262,7 +262,7 @@ def test_prefix3_probe_equals_packed_probe():
 
 
 def test_banked_rev_matches_flat():
-    """Banked [banks, 2^b] rev layout (XLA TPU gathers need int32-indexable
+    """Banked [banks, 2^b] rev layout (gathers want int32-indexable
     operands at GRCh38 scale) must give identical results through both
     query kernels and all prefix paths."""
     import numpy as np
@@ -320,7 +320,7 @@ def test_paired_rev_matches_flat():
 
 def test_ptab_matches_default():
     """use_ptab=True (interleaved checkpoint table, ops.predict.pack_ptab
-    — flag-off search-space variant, measured slower on v5e) must give
+    — flag-off search-space variant, measured slower) must give
     bit-identical query results to the default xy64+xhi16 repack path."""
     import numpy as np
 
@@ -552,8 +552,8 @@ def test_compact_escalate_bit_parity():
 
 def test_compact_indices_matches_nonzero():
     """_compact_indices (blocked int32 scan; replaces jnp.nonzero, whose
-    bool cumsum promotes to int64 under global x64 and fails to compile
-    at 5M lanes — docs/PERFORMANCE.md) must agree with np.nonzero
+    bool cumsum promotes to int64 under global x64 and once failed to
+    compile at 5M lanes) must agree with np.nonzero
     first-cap semantics at every size/cap corner."""
     import jax
 

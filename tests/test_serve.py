@@ -1,5 +1,5 @@
 """NN-predictor query engine (models.serve): the research model serving
-the real cascade, flag-gated (VERDICT r3 stretch #8).
+the real cascade, flag-gated.
 
 The correctness contract mirrors the PWL engine's: audit-derived
 max-error windows guarantee every PRESENT query resolves to a verified

@@ -13,8 +13,6 @@ import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
 
 from sapling_tpu.align.aligner import SeedExtendAligner
 from sapling_tpu.config import AlignerConfig, IndexConfig, parse_keyval_args

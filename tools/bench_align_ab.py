@@ -8,17 +8,16 @@
 Loads the cached aligner artifact once (mmap; host-gathered arrays
 materialized), simulates one read corpus, then for each named config
 runs one full untimed warm pass (every jit shape) + `repeats` timed
-passes and reports the median. Purpose: close the GRCh38 aligner gap
-(VERDICT r4 item: 13k -> >= 20k reads/s) without paying a 10-minute
-artifact load per experiment.
+passes and reports the median, without paying a multi-minute artifact
+load per experiment.
 
 Configs:
   base       block=16384 workers=8 coalesce=2 (the measured default)
   seedcu     base + SAPLING_SEED_COMPACTU=1 (compact_unresolved for the
              seed queries — measured slower at 20 Mbp, never re-A/B'd
-             at 3.1 Gbp where seed query is 30% of the profile)
+             at 3.1 Gbp)
   block32k   block=32768 workers=8 coalesce=1 (halve dispatch count)
-  coalesce4  block=16384 workers=8 coalesce=4 (amortize seed-query RPC)
+  coalesce4  block=16384 workers=8 coalesce=4 (fewer seed-query dispatches)
 """
 
 import os
@@ -27,8 +26,6 @@ import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
 
 import numpy as np
 

@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """A/B the NN-predictor query engine against the PWL engine on a cached
-index artifact (VERDICT r3 stretch #8: the reference's NN never serves;
-here it drives the real cascade, flag-gated — models.serve).
+index artifact (the reference's NN never serves; here it drives the real
+cascade, flag-gated — models.serve).
 
     python tools/bench_nn_query.py <index.stpu.npz> [nq=5000000]
         [chunks=64] [size=16] [epochs=300] [stride=1] [iters=6]
 
 Reports: NN audit windows vs the PWL table's, both engines' q/s (same
-timing doctrine as bench.py: data-chained iterations, digest-only
-materialization), and the self-check.
+timing as bench.py: data-chained iterations in one program), and the
+self-check.
 """
 
 import os
@@ -17,8 +17,6 @@ import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
 
 import numpy as np
 

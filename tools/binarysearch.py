@@ -17,8 +17,6 @@ import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
 
 import numpy as np
 
@@ -65,8 +63,7 @@ def main(argv):
 
     # q_words is WORD-MAJOR [WQ, B]: lanes slice on AXIS 1 (an axis-0
     # slice silently runs the full batch every time — the same bug that
-    # once understated bench.py's baseline 5x, docs/PERFORMANCE.md);
-    # results are materialized (block_until_ready lies on this backend)
+    # once understated bench.py's baseline); results are materialized
     np.asarray(run(q_words[:, :batch]))
     t0 = time.time()
     outs = [np.asarray(run(q_words[:, i : i + batch]))

@@ -5,8 +5,8 @@ Builds the full learned index for a multi-Gbp genome (default 3.1 Gbp —
 GRCh38 scale, the reference's headline benchmark genome) within ~100 GB
 host RAM by freeing each stage's inputs as soon as the next stage no
 longer needs them, and storing ranks as uint32
-(2^31 <= n < 2^32; the 12.4 GB rev array then fits one TPU v5e chip's
-HBM next to the 0.8 GB packed genome and the PWL table).
+(2^31 <= n < 2^32; the rev array is then 12.4 GB, next to the 0.8 GB
+packed genome and the PWL table on the device).
 
     python tools/build_big_index.py [n=3100000000] [k=21] [nb=26]
         [out=.bench_cache/bench_big.stpu.npz] [aligner=0] [stage=1]
@@ -176,8 +176,9 @@ def main(argv):
     del fwd
     gc.collect()
     # per-bucket adaptive bounds power a flag-off query variant that
-    # measured <=0.92x at every scale (docs/PERFORMANCE.md); off by
-    # default here — tools/add_bucket_bounds.py retrofits them.
+    # measured slower at every scale where first tried (docs/
+    # PERFORMANCE.md at commit 9faeb07); off by default here —
+    # tools/add_bucket_bounds.py retrofits them.
     bnd = (bucket_bounds(kmers, audit.errors, 2 * k, nb)
            if want_bounds else None)
     del kmers

@@ -19,8 +19,6 @@ import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
 
 import numpy as np
 
@@ -52,12 +50,12 @@ def main(argv):
     print(f"dataset: {ds.x.shape[0]} chunks x {ds.x.shape[1]} points")
     if batch is None and ds.x.size > (1 << 24):
         # full-batch training materializes [chunks, per, layer] f64
-        # activations per epoch — a 20 Mbp genome's 20M samples blew the
-        # 15.75 GiB HBM (measured 17.3 GiB). Fall back to the reference's
-        # own minibatch regime (NN/fit.py batch=64; bigger here since all
+        # activations per epoch, which outgrows device memory at tens of
+        # millions of samples. Fall back to the reference's own minibatch
+        # regime (NN/fit.py batch=64; bigger here since all
         # chunks train in one vmapped step).
         batch = 2048
-        print(f"dataset too large for full-batch training on one chip; "
+        print(f"dataset too large for full-batch training on one device; "
               f"using batch={batch} (override with batch=N)")
     trainer = residual.Trainer.create(
         jax.random.PRNGKey(0), num_chunks=ds.x.shape[0],

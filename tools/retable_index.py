@@ -7,8 +7,7 @@ count — without re-running SA-IS or Kasai.
 
 The reference sweeps bucket counts to 2^29 on GRCh38
 (eval/TimingPlot/multitoolplot.py:19-28); our GRCh38 artifact shipped at
-2^26 (46 suffixes/bucket, 18.7% prediction-probe hit rate —
-docs/PERFORMANCE.md). Slim checkpoints cost 10 B each on device, so
+2^26 (46 suffixes/bucket). Slim checkpoints cost 10 B each on device, so
 2^27/2^28 fit next to the 12.4 GB Rows2D rev; this tool re-runs sweep 1
 (checkpoints) + sweep 2 (error audit) from the artifact's own
 codes + inv, deriving the lcp>=k runs from k-mer equality in rank space

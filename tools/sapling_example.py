@@ -10,7 +10,7 @@ src/sapling_example.cpp:30-99):
 
 Runs the reference's experiment sweep (qLen in {k-10, k, k+10, k+20,
 k+30, k+80}, or one qLen) over nq random genome substrings, timing the
-batched TPU query path and verifying every answer by substring equality
+batched device query path and verifying every answer by substring equality
 (reference: src/sapling_example.cpp:106-155). Also times the classic
 binary-search baseline on the same queries.
 """
@@ -21,8 +21,6 @@ import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
 
 import numpy as np
 

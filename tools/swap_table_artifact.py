@@ -6,9 +6,7 @@
 The table npz comes from tools/retable_index.py (table-only output).
 The artifact is loaded via mmap (members stream through, ~no RAM), the
 table is swapped, and the artifact is atomically replaced (write to
-.tmp, rename). Measured motivation: at 3.1 Gbp the 2^27 retable reads
-1.815M vs 1.455M q/s (nb=26) on chip — the artifact should carry its
-best-measured table (docs/PERFORMANCE.md, r5 nb sweep).
+.tmp, rename), so the artifact carries its best-measured table.
 """
 
 import os
